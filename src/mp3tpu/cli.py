@@ -207,7 +207,7 @@ def _cmd_bench(args):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="mp3tpu",
-                                 description="TPU-native MP3 framework")
+                                 description="batched MP3 framework on JAX")
     sub = ap.add_subparsers(dest="cmd", required=True)
 
     d = sub.add_parser("decode", help="decode MP3 to WAV")

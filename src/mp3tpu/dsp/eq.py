@@ -1,9 +1,9 @@
 """Graphic EQ (SURVEY.md D4).
 
 Design decision (SURVEY.md §7.4): FIR, not biquad IIR — IIR is a
-per-sample sequential recurrence and therefore TPU-hostile; a
-frequency-sampled linear-phase FIR applies as one convolution (MXU)
-and is exactly checkpointable via its overlap tail.
+per-sample sequential recurrence and therefore hostile to batched
+device work; a frequency-sampled linear-phase FIR applies as one
+convolution and is exactly checkpointable via its overlap tail.
 """
 from __future__ import annotations
 

@@ -1,8 +1,8 @@
 """Rational polyphase resampler (SURVEY.md D2) — e.g. 44.1k -> 48k (147:160).
 
-TPU-idiomatic: the windowed-sinc prototype is designed once in float64
-(Kaiser window), then resampling is one `lax.conv_general_dilated` with
-input dilation L and stride M — pure MXU/VPU work, no per-sample Python.
+The windowed-sinc prototype is designed once in float64 (Kaiser
+window), then resampling is one strided `lax.conv_general_dilated` —
+dense device work, no per-sample Python.
 Streaming state is the filter tail (explicit, checkpoint-friendly).
 """
 from __future__ import annotations
@@ -34,15 +34,13 @@ def design_filter(L: int, M: int, taps_per_phase: int = 24,
 class Resampler:
     """Streaming rational resampler for PCM [n, ch] float32.
 
-    The naive formulation (input-dilate by L, stride by M) compiles to a
-    TPU program that spends most of its time on the zero-stuffed lattice
-    — measured 2/3 of the whole decode pipeline. The resampling operator
+    The naive formulation (input-dilate by L, stride by M) spends most
+    of its work on the zero-stuffed lattice. The resampling operator
     is block-Toeplitz: every M input samples (+ state_len of context)
     produce exactly L output samples through one constant [L, M+state_len]
     matrix W[o, j] = h[n_taps-1 - (j*L - o*M)]. That is a plain strided
-    conv with L output features and NO input dilation — a dense MXU
-    matmul per block (measured ~20x faster, bit-equal math up to MXU
-    summation order)."""
+    conv with L output features and NO input dilation — a dense matrix
+    product per block (equal math up to summation order)."""
 
     def __init__(self, sr_in: int, sr_out: int, taps_per_phase: int = 24):
         self.sr_in, self.sr_out = sr_in, sr_out

@@ -8,7 +8,7 @@ Loop/seek cover the replay half; this module covers the slow half —
 tempo change WITHOUT pitch change (a plain resampler would turn a 440 Hz
 voice into 330 Hz at 0.75x).
 
-TPU-idiomatic formulation:
+Batched device formulation:
 - STFT/ISTFT are batched `jnp.fft.rfft/irfft` over fixed-size frame
   chunks — dense device work, no per-sample Python.
 - Phase propagation is NOT a per-sample loop: the per-frame

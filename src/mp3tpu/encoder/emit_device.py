@@ -1,4 +1,4 @@
-"""Device Huffman EMISSION (SURVEY.md E5 on TPU; round 4).
+"""Device Huffman EMISSION (SURVEY.md E5 on the accelerator).
 
 The encode path's dominant D2H cost is shipping the emitted spectra
 (`ix`, ~83% of downloaded bytes) to the host emitter. This module
@@ -18,9 +18,9 @@ use_sf)):
     -> [R, 2196] field vectors in exact emission order;
   - MSB-first bit packing is ONE one-hot matmul with a 16-bit hi/lo
     split (sums of disjoint-bit contributions are < 2^16 per half, so
-    f32 accumulation is exact — measured exact + 4.8 us/row on the
-    v5e, 3.3x cheaper than the ix download it replaces;
-    tools/device_emit_spike.py).
+    f32 accumulation is exact — provided the product runs at HIGHEST
+    precision: TF32 operands keep 11 significant bits and would
+    corrupt the 16-bit halves).
 
 Byte-identical to huffcode.encode_granule / the native C++ emitter
 (tested row-for-row in test_emit_device.py)."""
@@ -91,8 +91,8 @@ def _bitlen4(jnp, v):
 
 def _pack_words(jnp, V, L, W):
     """MSB-first pack: fields (V, L) [R, F] -> u32 words [R, W].
-    Disjoint bits make add == or; 16-bit split keeps f32 sums exact
-    (tools/device_emit_spike.py: exact, ~4.8 us/row on v5e)."""
+    Disjoint bits make add == or; the 16-bit split keeps f32 sums
+    exact (HIGHEST precision: no TF32 rounding of the halves)."""
     off = jnp.cumsum(L, axis=1) - L
     w = (off >> 5).astype(jnp.int32)
     r = off & 31
@@ -111,8 +111,10 @@ def _pack_words(jnp, V, L, W):
     oh2 = (w[:, :, None] + 1 == cols[None, None]).astype(jnp.float32)
 
     def mm(c, o):
-        a = jnp.einsum("rf,rfw->rw", (c >> 16).astype(jnp.float32), o)
-        b = jnp.einsum("rf,rfw->rw", (c & 0xFFFF).astype(jnp.float32), o)
+        a = jnp.einsum("rf,rfw->rw", (c >> 16).astype(jnp.float32), o,
+                       precision="highest")
+        b = jnp.einsum("rf,rfw->rw", (c & 0xFFFF).astype(jnp.float32), o,
+                       precision="highest")
         return (a.astype(jnp.uint32) << 16) + b.astype(jnp.uint32)
 
     return mm(hi, oh) + mm(lo, oh2)

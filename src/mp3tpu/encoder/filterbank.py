@@ -1,7 +1,7 @@
 """Encoder filterbank: analysis polyphase + forward MDCT + forward alias
 (SURVEY.md E1/E2) — ISO 11172-3 §2.4.3.2 and Annex C.
 
-TPU-idiomatic like the decoder: the analysis FIFO is re-expressed as a
+Batched like the decoder: the analysis FIFO is re-expressed as a
 16-tap FIR over 32-sample PCM blocks (derived by impulse-probing the
 scalar spec implementation), the MDCT is a windowed [36->18] constant
 matrix per block type, and the forward alias butterflies are the exact

@@ -1,9 +1,9 @@
-"""Device (TPU) psychoacoustic model 2 (SURVEY.md E3, §3.4).
+"""Device psychoacoustic model 2 (SURVEY.md E3, §3.4).
 
 Batched jnp port of psymodel.PsyModel.analyze: one jitted call maps
 [B, n] PCM onto per-granule threshold/energy ratios for a whole batch
 of channels — the FFT analysis is embarrassingly parallel over
-granules, exactly the shape the MXU/VPU want. Tables come from the
+granules, exactly the shape an accelerator wants. Tables come from the
 SAME PsyModel instance (single source of truth); the numpy model stays
 the reference (device output is f32-close, asserted by tests, and only
 shapes the outer loop's allowed-distortion targets).
@@ -34,6 +34,8 @@ def _jitted(sample_rate: int, G: int, align: int = 0):
     import jax.numpy as jnp
     m = get_model(sample_rate)
     f32 = lambda a: jnp.asarray(a, jnp.float32)
+    # every band/spreading product in float32 (never TF32)
+    mm = functools.partial(jnp.matmul, precision="highest")
     red_l, spread_l = f32(m.red_l), f32(m.spread_l)
     red_s, spread_s = f32(m.red_s), f32(m.spread_s)
     minval_l = f32(m.minval_l)
@@ -74,10 +76,10 @@ def _jitted(sample_rate: int, G: int, align: int = 0):
                        + (r * jnp.sin(f) - rp * jnp.sin(fp)) ** 2)
         c = num / jnp.maximum(r + jnp.abs(rp), 1e-30)
         e_bin = r * r
-        eb = e_bin @ red_l
-        cb = (c * e_bin) @ red_l
-        ecb = eb @ spread_l.T
-        ct = cb @ spread_l.T
+        eb = mm(e_bin, red_l)
+        cb = mm(c * e_bin, red_l)
+        ecb = mm(eb, spread_l.T)
+        ct = mm(cb, spread_l.T)
         cbn = jnp.clip(ct / jnp.maximum(ecb, 1e-30), 0.05, 1.0)
         tb = jnp.clip(-0.299 - 0.43 * jnp.log(cbn), 0.0, 1.0)
         snr_db = jnp.maximum(minval_l[None, None],
@@ -88,22 +90,22 @@ def _jitted(sample_rate: int, G: int, align: int = 0):
         nb2 = jnp.concatenate([inf, inf, nb[:, :-2]], axis=1)
         nb = jnp.minimum(nb, jnp.minimum(RPELEV1 * nb1, RPELEV2 * nb2))
         nb = jnp.maximum(nb, qthr_l[None, None])
-        thm_sfb = nb @ w_l
-        en_sfb = eb @ w_l
+        thm_sfb = mm(nb, w_l)
+        en_sfb = mm(eb, w_l)
         ratio_l = thm_sfb / jnp.maximum(en_sfb, 1e-30)
 
         # short path for every granule (host masks non-short); shares
         # the long path's NFFT_L-padded signal (aligned starts need it)
         frs = x[:, idx_s] * win_s                    # [B, 3G, 256]
         es = jnp.abs(jnp.fft.rfft(frs, axis=2)) ** 2
-        ebs = es @ red_s                             # [B, 3G, np_s]
-        ecbs = ebs @ spread_s.T
+        ebs = mm(es, red_s)                          # [B, 3G, np_s]
+        ecbs = mm(ebs, spread_s.T)
         nbs = (ecbs * 10.0 ** (-SNR_S_DB / 10.0)).reshape(B, G, 3, -1)
         nbs = nbs.at[:, :, 1].min(RPELEV1 * nbs[:, :, 0])
         nbs = nbs.at[:, :, 2].min(RPELEV1 * nbs[:, :, 1])
         nbs = jnp.maximum(nbs, qthr_s[None, None, None])
-        thm_s = nbs @ w_s12
-        en_s = ebs.reshape(B, G, 3, -1) @ w_s12
+        thm_s = mm(nbs, w_s12)
+        en_s = mm(ebs.reshape(B, G, 3, -1), w_s12)
         ratio_s = thm_s / jnp.maximum(en_s, 1e-30)
         return ratio_l, ratio_s
 

@@ -8,10 +8,9 @@
 // info, headers, physical frame slicing. The Python implementation in
 // mux_packed.py stays the semantics reference and mandatory fallback.
 //
-// Exists because the mux was the last host-serial term of the batch
-// encode wall (~2.1 s of ~11 s at B=64x10s; docs/encode_batch_notes.md)
-// — per-granule numpy OR-shifts and per-frame Python side-info packing
-// cost ~90 us/frame; this does the same work in ~1 us/frame.
+// Exists because the mux is a host-serial term of the batch encode
+// (docs/encode_batch_notes.md): per-granule numpy OR-shifts and
+// per-frame Python side-info packing are replaced by one C++ pass.
 //
 // C ABI only; loaded via ctypes alongside the unpacker.
 

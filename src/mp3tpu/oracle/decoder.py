@@ -6,7 +6,7 @@ serially per granule in numpy float64:
   requantize -> stereo mixing -> reorder -> alias reduction ->
   IMDCT/window/overlap-add -> frequency inversion -> polyphase synthesis
 
-This decoder defines ground truth for the TPU kernels (§4.2); it is
+This decoder defines ground truth for the device kernels (§4.2); it is
 itself validated against libmpg123 on crafted and real streams
 (tests/test_oracle_mpg123.py).
 """

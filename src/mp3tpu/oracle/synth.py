@@ -1,7 +1,7 @@
 """Reference polyphase synthesis filterbank — ISO 11172-3 §2.4.3.2.2.
 
 Straight-from-spec V-FIFO formulation in float64. This is the ground
-truth for the TPU kernel's FIR reformulation (tables/filterbank.py
+truth for the device kernel's FIR reformulation (tables/filterbank.py
 synthesis_fir) and for bit-exactness tests.
 """
 from __future__ import annotations

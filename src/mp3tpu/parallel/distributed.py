@@ -1,7 +1,7 @@
 """Multi-host bring-up (SURVEY.md P6, §5.8).
 
-The TPU-native comm stack is XLA collectives over ICI (intra-slice) and
-DCN (cross-slice), reached through jax.distributed + Mesh/NamedSharding.
+The comm stack is XLA collectives (NCCL between GPUs), reached through
+jax.distributed + Mesh/NamedSharding.
 Steady-state decode needs zero collectives (streams are independent);
 this module covers the three places communication exists:
   (a) multi-host initialization,

@@ -1,8 +1,8 @@
 """Audio sinks + PCM ring buffer (SURVEY.md D7).
 
 WAV/raw file writers are always available; a realtime device sink
-(ALSA/PortAudio) is a feature-flagged stub here because no audio stack
-exists on TPU hosts — the engine's contract is the sink interface, and
+(ALSA/PortAudio) is a feature-flagged stub here because accelerator
+servers ship no audio stack — the engine's contract is the sink interface, and
 the ring buffer provides the underrun accounting (F3) that a realtime
 sink would consume.
 """
@@ -156,7 +156,7 @@ class RingBuffer:
 
 class RealtimeSink(Sink):
     """Realtime audio-device sink (ALSA/PortAudio) behind a feature flag
-    (SURVEY.md D7): TPU hosts ship no audio stack, so this is present
+    (SURVEY.md D7): accelerator servers ship no audio stack, so this is present
     for API completeness and activates only when MP3TPU_AUDIO_DEVICE is
     set and a backend module is importable. Falls back to a RingBuffer
     consumer model either way, so underrun accounting works headlessly.
@@ -170,7 +170,7 @@ class RealtimeSink(Sink):
         self.backend = None
         dev = os.environ.get("MP3TPU_AUDIO_DEVICE")
         if dev:
-            try:  # pragma: no cover - no audio stack on TPU hosts
+            try:  # pragma: no cover - no audio stack on servers
                 import alsaaudio  # type: ignore
                 pcm = alsaaudio.PCM(rate=sample_rate, channels=channels,
                                     device=dev)

@@ -110,7 +110,7 @@ def synthesis_matrix() -> np.ndarray:
 def synthesis_fir() -> np.ndarray:
     """G[16, 32, 32]: pcm_t = sum_d S_{t-d} @ G[d]  — the synthesis
     filterbank re-expressed as a 16-tap FIR over granule time-steps
-    (SURVEY.md §3.3, §7.3: FIFO state eliminated for TPU batching).
+    (SURVEY.md §3.3, §7.3: FIFO state eliminated for device batching).
 
     Derived by probing the reference FIFO implementation with unit
     impulses, guaranteeing structural identity with the oracle.

@@ -213,3 +213,25 @@ def test_encode_config_reaches_encoder():
     outs = mp3tpu.encode_batch([np.stack([sig, sig], 1)], 44100)
     idx2 = fr.scan_frames(np.frombuffer(outs[0], np.uint8))
     assert all(h.bitrate == 192000 for h in idx2.headers[1:])
+
+
+@pytest.mark.parametrize("env", ["set", "unset"])
+def test_compile_cache_dir(env, tmp_path):
+    """JAX_COMPILATION_CACHE_DIR wins when set, and the package sets no
+    other directory; unset, a checkout caches in its fixed .jax_cache."""
+    import subprocess
+    import sys
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    e = dict(os.environ, PYTHONPATH=os.path.join(repo, "src"))
+    e.pop("JAX_COMPILATION_CACHE_DIR", None)
+    want = os.path.join(repo, ".jax_cache")
+    if env == "set":
+        want = str(tmp_path / "cache")
+        e["JAX_COMPILATION_CACHE_DIR"] = want
+    code = ("import jax, mp3tpu; "
+            "print(mp3tpu.compile_cache_dir()); "
+            "print(jax.config.jax_compilation_cache_dir)")
+    out = subprocess.run([sys.executable, "-c", code], env=e, cwd=tmp_path,
+                         capture_output=True, text=True, timeout=120,
+                         check=True)
+    assert out.stdout.split() == [want, want]

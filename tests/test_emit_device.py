@@ -175,3 +175,48 @@ def test_production_loop_rows():
         row = np.packbits(np.asarray(g.bits.bits, np.uint8))
         ref[: len(row)] = row
         assert np.array_equal(got[i], ref), i
+
+
+def _pack_reference(V, L, W):
+    """Plain MSB-first bit packing of (value, length) fields into u32."""
+    out = np.zeros((len(V), W), np.uint32)
+    for r in range(len(V)):
+        bits = []
+        for v, n in zip(V[r], L[r]):
+            bits += [(int(v) >> (n - 1 - k)) & 1 for k in range(n)]
+        bits += [0] * (W * 32 - len(bits))
+        words = np.packbits(np.asarray(bits, np.uint8)).view(">u4")
+        out[r] = words.astype(np.uint32)
+    return out
+
+
+@pytest.mark.parametrize("fields", ["all_ones", "random", "seams"])
+def test_pack_words_exact(fields):
+    """_pack_words is exact when each 16-bit half of a word is 0xFFFF or
+    close (the case TF32 operand rounding would corrupt) and when fields
+    straddle 32-bit word seams."""
+    import jax
+    import jax.numpy as jnp
+    from mp3tpu.encoder.emit_device import _pack_words
+    rng = np.random.default_rng(11)
+    R, F, W = 8, 48, 24
+    L = rng.integers(1, 20, (R, F))
+    if fields == "seams":   # ends at bit 31, straddles 32, ends at 64
+        L = np.resize([16, 15, 2, 15, 16, 2], (R, F))
+    V = (1 << L) - 1 if fields != "random" else \
+        rng.integers(0, 1 << 19, (R, F)) & ((1 << L) - 1)
+    L[:, -3:] = 0                      # dead fields contribute nothing
+    got = jax.jit(lambda v, n: _pack_words(jnp, v, n, W))(
+        jnp.asarray(V, jnp.int32), jnp.asarray(L, jnp.int32))
+    assert np.array_equal(np.asarray(got), _pack_reference(V, L, W))
+
+
+def test_emit_escape_rows_byte_exact():
+    """Rows of maximal linbits escapes (all-ones 13-bit fields) through
+    the device emitter, byte-exact against huffcode.encode_granule."""
+    rows = np.zeros((4, 576), np.int32)
+    rows[0, 0:40] = 8191 + 15                    # all-ones linbits
+    rows[1, 1:41:2] = -(8191 + 15)
+    rows[2, 0:200] = np.resize([8191 + 15, -(4095 + 15), 15, -16], 200)
+    rows[3, 0:64] = np.resize([1023 + 15, 0, -(2047 + 15), 1], 64)
+    _check_layout(rows, 0, "long", False)

@@ -313,3 +313,45 @@ def test_native_mux_byte_identical():
             mux_packed.FORCE_PYTHON_MUX = False
         got = encode_batch(streams, sr, bitrate=128)
         assert all(a == b for a, b in zip(ref, got))
+
+
+@pytest.mark.parametrize("short", [False, True], ids=["long", "short"])
+def test_device_count_edge_rows_match_vcount(short):
+    """The device count (the GPU's form) on edge rows — all-zero, the
+    deepest linbits escape, dense large values — integer-exact vs vcount
+    row-for-row, tables and count1 selection included."""
+    rng = np.random.default_rng(5)
+    ix = np.zeros((64, 576), np.int32)
+    for r in range(64):
+        n = rng.integers(20, 500)
+        pos = rng.choice(576, n, replace=False)
+        ix[r, pos] = np.round(rng.standard_normal(n) *
+                              rng.choice([1, 2, 5, 30, 900])).astype(np.int32)
+    ix[0] = 0                                   # all-zero row
+    ix[1, :4] = (8191 + 15, -3, 1, 0)           # deepest escape
+    ix[2, :576] = np.resize([1, -1, 0, 1], 576)  # count1 to the last line
+    C = vloop_device._device_consts(SR)
+    ref, sel = count_bits_rows_full(ix, SR, 2 if short else 0)
+    bits, selr, _bv, _k, c1 = jax.jit(
+        lambda a: vloop_device._count_rows(jnp, C, a, short))(jnp.asarray(ix))
+    assert np.array_equal(np.asarray(bits), ref)
+    assert np.array_equal(vloop_device._TID[np.asarray(selr)],
+                          np.stack([sel["t0"], sel["t1"], sel["t2"]], 1))
+    assert np.array_equal(np.asarray(c1), sel["c1table"])
+
+
+@pytest.mark.parametrize("which", ["rate_loop_dims", "encode_routing"])
+def test_backend_choice_is_explicit(which, monkeypatch):
+    """Row blocking and single-stream routing are chosen per named
+    backend; a backend with no entry is an error, never a default."""
+    from mp3tpu import encoder
+    if which == "rate_loop_dims":
+        assert vloop_device._dims() == (256, 512)          # CPU blocking
+        monkeypatch.setattr(jax, "default_backend", lambda: "rocm")
+        with pytest.raises(ValueError, match="rocm"):
+            vloop_device._dims()
+    else:
+        assert encoder._device_min_granules() is None     # CPU: host path
+        monkeypatch.setattr(jax, "default_backend", lambda: "rocm")
+        with pytest.raises(ValueError, match="rocm"):
+            encoder._device_min_granules()

@@ -7,8 +7,8 @@ jax = pytest.importorskip("jax")
 import jax.numpy as jnp
 
 # these tests need the 8-virtual-device CPU mesh the conftest provisions
-# on the CPU backend; a real single-chip TPU run has one device — skip
-# there (the driver's dryrun_multichip covers sharding separately)
+# on the CPU backend; a single GPU has one device — skip there
+# (`chip_smoke.py --multi` covers sharding on four cards)
 if len(jax.devices()) < 8:
     pytestmark = pytest.mark.skip(reason="needs 8 devices (CPU mesh)")
 
@@ -154,7 +154,6 @@ def test_graft_dryrun_self_provisions():
 
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env = dict(os.environ)
-    env["JAX_PLATFORM_NAME"] = "cpu"
     env["JAX_PLATFORMS"] = "cpu"
     env["XLA_FLAGS"] = (re.sub(
         r"--xla_force_host_platform_device_count=\d+", "",
@@ -164,8 +163,6 @@ def test_graft_dryrun_self_provisions():
     code = (
         f"import sys; sys.path.insert(0, {repo!r})\n"
         "import jax\n"
-        "jax.config.update('jax_platforms', 'cpu')\n"
-        "jax.config.update('jax_platform_name', 'cpu')\n"
         "assert len(jax.devices()) == 1, jax.devices()\n"
         "import __graft_entry__ as g\n"
         "g.dryrun_multichip(4)\n"

@@ -1,6 +1,5 @@
 """Reduced scheduler soak/chaos session (SURVEY.md §5.2-§5.3; the
-hour-scale run lives in tools/soak.py, its committed snapshot in
-docs/soak_r04.json). Same harness, ~4 minutes of audio: elastic
+hour-scale run lives in tools/soak.py). Same harness, ~4 minutes of audio: elastic
 refill churn, three-kind corrupt-stream injection, live ring
 consumers on corrupted streams too — zero crashes, no starvation,
 bounded memory, exact per-stream sample accounting, and the fault

@@ -35,7 +35,7 @@ def test_scheduler_into_tiny_rings_with_consumers():
     # stream's bytes arrive uncorrupted through tiny rings under
     # concurrency — so the reference must be bit-comparable, which
     # across differently-composed XLA programs (decode_file's group
-    # scan) only holds on the CPU backend, not on TPU. The <=1 LSB
+    # scan) only holds on the CPU backend, not on an accelerator. The <=1 LSB
     # scheduler-vs-decode_file contract is pinned elsewhere
     # (test_scheduler_batch_equals_single).
     from mp3tpu.player import CollectSink

@@ -31,8 +31,8 @@ combination). Asserted invariants:
   decode_file to <=1 LSB.
 
 Run:  python tools/soak.py [total_audio_seconds]   (default 3600)
-writes docs/soak_r04.json. tests/test_soak.py runs a reduced session
-through the same harness.
+writes chiprun_out/soak.json (git-ignored). tests/test_soak.py runs a
+reduced session through the same harness.
 """
 from __future__ import annotations
 
@@ -366,7 +366,8 @@ def run_soak(total_audio_s: float = 3600.0, n_slots: int = 8,
 def main():
     total = float(sys.argv[1]) if len(sys.argv) > 1 else 3600.0
     rep = run_soak(total_audio_s=total)
-    path = os.path.join(_REPO, "docs", "soak_r04.json")
+    path = os.path.join(_REPO, "chiprun_out", "soak.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
     with open(path, "w") as f:
         json.dump(rep, f, indent=1)
     print(json.dumps({k: v for k, v in rep.items() if k != "waves"},
@@ -376,9 +377,5 @@ def main():
 
 
 if __name__ == "__main__":
-    os.environ.setdefault("JAX_PLATFORM_NAME", "cpu")
     os.environ.setdefault("JAX_PLATFORMS", "cpu")
-    import jax
-    jax.config.update("jax_platforms", "cpu")
-    jax.config.update("jax_platform_name", "cpu")
     main()
